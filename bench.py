@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """Repo benchmark entry point: prints one JSON line.
 
-{"metric": "reads_per_sec_chip", "value": N, "unit": "reads/s",
- "vs_baseline": N}  — vs_baseline is the fraction of the 10M reads/s/host
-north star (the reference publishes no numbers; see BASELINE.md).
+{"metric": "reads_per_sec", "value": N, "unit": "reads/s", "detail": {...}}
+with the device and the card's name and power limit in "detail".  Runs on
+a GPU only; with none it exits non-zero and prints no result.
 """
 
 import sys

@@ -1,4 +1,4 @@
-"""muscato_tpu — a TPU-native exhaustive multi-mapping engine.
+"""muscato_tpu — an exhaustive multi-mapping engine in JAX.
 
 A from-scratch rebuild of the capabilities of Muscato (kshedden/muscato):
 matching large collections of sequencing reads against large collections of
@@ -7,7 +7,7 @@ seed-and-verify algorithm.
 
 Where the reference is a Unix process pipeline (Go stage binaries + GNU
 sort/join over snappy-compressed text files), this package is a single
-Python driver around an HBM-resident, batched compute core:
+Python driver around a device-resident, batched compute core:
 
 - reads and targets are 5-letter-coded integer arrays (A,C,G,T,X),
 - the per-window "screen" is an exact device-side hashed-key membership

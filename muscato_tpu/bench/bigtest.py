@@ -15,9 +15,6 @@ import time
 
 
 def main(argv=None) -> int:
-    from ..cli import _apply_platform_override
-
-    _apply_platform_override()
     p = argparse.ArgumentParser()
     p.add_argument("--NumRead", type=int, default=100_000)
     p.add_argument("--NumGene", type=int, default=100_000)
@@ -58,9 +55,12 @@ def main(argv=None) -> int:
     driver.run(cfg)
     dt = time.time() - t0
     nlines = sum(1 for _ in open(cfg.ResultsFileName, "rb"))
+    import jax
+
+    dev = jax.devices()[0]
     print(
-        f"full run: {dt:.1f}s ({ns.NumRead/dt:,.0f} reads/s end-to-end), "
-        f"{nlines} result rows",
+        f"full run on {dev.platform} ({dev.device_kind}): {dt:.1f}s "
+        f"({ns.NumRead/dt:,.0f} reads/s end-to-end), {nlines} result rows",
         flush=True,
     )
     # Per-stage breakdown (host prep/report vs device match) from the

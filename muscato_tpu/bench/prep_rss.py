@@ -1,4 +1,4 @@
-"""Peak-RSS A/B of the read prep paths (round-4 VERDICT item 6).
+"""Peak-RSS A/B of the read prep paths.
 
 Measures the one-pass vectorized build_readset against the bounded-memory
 build_readset_chunked on the same generated fastq, each in its own
@@ -126,7 +126,8 @@ def main(argv=None) -> int:
              "--_mode", mode, "--_path", reads_path,
              "--ReadLen", str(ns.ReadLen), "--Chunk", str(ns.Chunk)],
             capture_output=True, text=True,
-            env=dict(os.environ, JAX_PLATFORMS="cpu", MUSCATO_PLATFORM="cpu"),
+            # Host-only children stay off the card: one process per card.
+            env=dict(os.environ, JAX_PLATFORMS="cpu"),
         )
         sys.stderr.write(r.stderr[-2000:])
         line = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]

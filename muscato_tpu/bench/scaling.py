@@ -1,9 +1,7 @@
 """Scaling harness: throughput of the sharded matching step vs mesh shape.
 
-BASELINE.md asks for scaling at 1 chip / 1 host / N hosts.  On real
-hardware this runs over the actual devices; on a development host it runs
-over virtual CPU devices (functional validation — virtual-device timings
-are not hardware throughput).
+BASELINE.md asks for scaling at 1 card / 1 host / N hosts.  Runs over the
+visible GPUs, and exits non-zero on a machine without one.
 
 Usage: python -m muscato_tpu.bench.scaling [--NumRead N] [--NumGene N]
 """
@@ -16,9 +14,9 @@ import time
 
 
 def main(argv=None) -> int:
-    from ..cli import _apply_platform_override
+    from .runner import require_gpu
 
-    _apply_platform_override()
+    require_gpu()
     p = argparse.ArgumentParser()
     p.add_argument("--NumRead", type=int, default=100_000)
     p.add_argument("--NumGene", type=int, default=1_000)

@@ -211,7 +211,7 @@ def parse_cli(argv: Optional[List[str]] = None) -> Config:
     p = argparse.ArgumentParser(
         prog="muscato",
         description=(
-            "TPU-native exhaustive multi-mapping of sequencing reads against "
+            "Exhaustive multi-mapping of sequencing reads against "
             "target sequences. Flags override values from --ConfigFileName; "
             "zero/empty flag values mean 'not set', as in the reference."
         ),

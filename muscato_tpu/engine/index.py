@@ -1,11 +1,11 @@
-"""Target index: the HBM-resident replacement for the Bloom screen.
+"""Target index: the device-resident replacement for the Bloom screen.
 
 The reference sketches the *reads* in Bloom filters and streams every target
 window through them (cmd/muscato_screen/main.go:116-207, 408-480), then
 re-derives exact candidates with an external sort-merge join
 (cmd/muscato_confirm/main.go:375-416).  Here the roles are flipped the way
-BASELINE.json prescribes for TPU: the *targets* are compiled once into a
-sorted window-key index in HBM, and read batches probe it.  The probe is
+BASELINE.json prescribes: the *targets* are compiled once into a sorted
+window-key index in device memory, and read batches probe it.  The probe is
 exact (plus rare, verify-filtered hash collisions for wide windows), so the
 reference's screen+sort+join collapses into one join.
 
@@ -112,9 +112,7 @@ class TargetIndex:
     host_arrays: tuple | None = field(default=None, repr=False)
     # Build-phase wall-time split (host keys+radix sort / nibble pack /
     # device upload), recorded by build_target_index so a slow build is
-    # attributable from bench provenance alone: the upload term rides a
-    # relay on this dev host and can swing 20-160s for the ~800MB of
-    # (skeys, spos) at 98M windows while the host terms stay ~constant.
+    # attributable from bench provenance alone.
     build_timings: dict | None = field(default=None, repr=False)
     _aux: SearchAux | None = field(default=None, repr=False)
     _trows: tuple | None = field(default=None, repr=False)
@@ -126,9 +124,9 @@ class TargetIndex:
 
     def trows(self, nwords: int) -> jnp.ndarray:
         """Overlapping row view of tpacked for the row-gather verify (one
-        HBM latency per lane instead of one per fetched word — measured
-        4.7x on the verify's target fetch).  Built once per read word
-        count; ~2.75x tpacked's bytes of extra HBM."""
+        row fetch per lane instead of one lookup per fetched word).  Built
+        once per read word count; ~2.75x tpacked's bytes of extra device
+        memory."""
         if self._trows is None or self._trows[0] != nwords:
             t = pops.build_trows(self.tpacked, nwords, self.num_bases)
             self._trows = (nwords, t)
@@ -136,8 +134,7 @@ class TargetIndex:
 
     def gene_block(self) -> tuple:
         """(gblock device array, refine steps) for gene_of_pos_block —
-        replaces the log2(G)-step binary search per verify lane (measured
-        4x on the gene lookup)."""
+        replaces the log2(G)-step binary search per verify lane."""
         if self._gblock is None:
             gs = np.asarray(self.gene_start)
             gb, steps = pops.build_gene_block(gs, self.num_bases)

@@ -83,14 +83,6 @@ def pack_rows_np(codes: np.ndarray) -> np.ndarray:
     return np.sum(w << shifts[None, None, :], axis=2, dtype=np.uint32)
 
 
-@partial(jax.jit, static_argnames=("l",))
-def unpack_rows(rpacked: jnp.ndarray, l: int) -> jnp.ndarray:
-    """(R, NW) uint32 nibble-packed -> (R, l) uint8 codes."""
-    shifts = jnp.arange(BASES_PER_WORD, dtype=jnp.uint32) * 4
-    nib = (rpacked[:, :, None] >> shifts[None, None, :]) & jnp.uint32(0xF)
-    return nib.reshape(rpacked.shape[0], -1)[:, :l].astype(jnp.uint8)
-
-
 # Tail padding on the packed target stream: enough words that a full
 # max-length read slice starting at the last base stays in bounds
 # (supports MaxReadLength up to 4096).
@@ -110,12 +102,11 @@ def pack_stream(tcat: np.ndarray) -> jnp.ndarray:
 
 # ---- Row-gather target view -------------------------------------------
 #
-# A dynamic ROW gather from a 2-D table costs ~one HBM latency per row
-# regardless of row width, while an element gather pays ~a full latency per
-# element (measured: (N, 14) element gathers 465ms vs (N, 22) row gathers
-# 99.5ms at N=4M over a 100M-base stream).  The verify kernels therefore
-# fetch the target diagonal from `trows`, an overlapping strided view of
-# the packed stream: trows[i] = tpacked[8*i : 8*i + rowlen].  A diagonal's
+# One ROW gather from a 2-D table fetches a diagonal's words in one
+# contiguous read per lane, where an element gather issues nwords + 1
+# separate index lookups per lane.  The verify kernels therefore fetch the
+# target diagonal from `trows`, an overlapping strided view of the packed
+# stream: trows[i] = tpacked[8*i : 8*i + rowlen].  A diagonal's
 # word offset within its row is in [0, 8), resolved by a 3-level select
 # tree (static slices, VPU work).  rowlen = nwords + 9: nwords + 1 fetched
 # words + up to 7 offset words + 1 guard.
@@ -197,48 +188,6 @@ def gene_of_pos_block(
     return lo
 
 
-def gene_of_pos_block_mono(
-    gene_start: jnp.ndarray, gblock: jnp.ndarray, p: jnp.ndarray,
-    steps: int, *, interpret: bool = False,
-):
-    """gene_of_pos_block for a NONDECREASING position stream p: every
-    fetch (the two gblock bounds, each refine's gene_start probe, and
-    the final gene's start/end) is itself monotone — lo/hi start from
-    monotone gblock streams and midpoints of monotone sequences stay
-    monotone — so all ~(4 + steps) per-lane HBM latencies ride the
-    windowed monotone-gather kernel instead (profile r5: the gene
-    lookup's element gathers were the unexplained bulk of the 1.5s
-    verify chunk loop at the 8M batch).
-
-    Returns (g, gstart, gend, oflow).  Spans per 1024-lane block are
-    ~(genes crossed by the block's position range); a sparse block
-    crossing more than the window overflows -> caller falls back."""
-    from . import pallas_gather as _pg
-
-    def mono(tab, idx):
-        return _pg.monotone_gather(
-            tab, idx, block=2048, window=8192, interpret=interpret
-        )
-
-    g = gene_start.shape[0] - 1
-    b = (p >> GENE_BLOCK_BITS).astype(jnp.int32)
-    bc = jnp.clip(b, 0, gblock.shape[0] - 2)
-    lo, of0 = mono(gblock, bc)
-    hi, of1 = mono(gblock, bc + 1)
-    oflow = jnp.maximum(of0, of1)
-    for _ in range(steps):
-        mid = (lo + hi + 1) >> 1
-        gs_mid, of_m = mono(gene_start, jnp.clip(mid, 0, g))
-        oflow = jnp.maximum(oflow, of_m)
-        up = gs_mid <= p
-        lo = jnp.where(up, mid, lo)
-        hi = jnp.where(up, hi, mid - 1)
-    gstart, of2 = mono(gene_start, jnp.clip(lo, 0, g))
-    gend, of3 = mono(gene_start, jnp.clip(lo + 1, 0, g))
-    oflow = jnp.maximum(oflow, jnp.maximum(of2, of3))
-    return lo, gstart, gend, oflow
-
-
 def gene_of_pos(gene_start: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Owning gene of each stream position: the largest g with
     gene_start[g] <= p, as an unrolled branchless binary search over the
@@ -281,11 +230,6 @@ def verify_diagonals_packed(
     trows: jnp.ndarray | None = None,
     gblock: jnp.ndarray | None = None,
     gsteps: int = 0,
-    mgather: bool = False,
-    mg_rows_window: int = 2048,
-    interpret: bool = False,
-    dorder: bool = False,
-    mg_gene: bool = True,
 ):
     """Verify one (read, diagonal) once for ALL windows at once.
 
@@ -307,86 +251,26 @@ def verify_diagonals_packed(
       win_ok    <=> zero mismatching nibbles under window k's mask
       budget/nx are diagonal-level by definition.
 
-    The caller sorts lanes by (read, diagonal) — or (diagonal, read) with
-    dorder=True.  mgather=True routes the monotone stream of the chosen
-    order through the windowed monotone-gather kernels
-    (ops/pallas_gather.py) instead of per-lane HBM row gathers: the read
-    rows and lengths in (r, d) order, the trows TARGET rows in (d, r)
-    order (the non-monotone side stays a plain XLA gather).  Returns
-    (nx, g, s, okbits, oflow); oflow is nonzero iff a gather window
-    overflowed (results are then unusable and the caller must retry
-    without mgather)."""
+    The caller sorts lanes by (read, diagonal) or (diagonal, read), so one
+    of the two row-gather streams walks its table in order."""
     nwords = rpacked.shape[1]
     nwin = q1s.shape[0]
     active = (r >= 0) & (d >= 0)
     rc = jnp.clip(r, 0, rpacked.shape[0] - 1)
     dc = jnp.clip(d, 0, smax - 1)
-    oflow = jnp.int32(0)
-
-    if gblock is not None and mgather and dorder and mg_gene:
-        # (d, r) order: dc is nondecreasing over the live prefix, so the
-        # whole gene lookup rides the windowed kernel.  Dead tail lanes
-        # (r < 0, sorted last) clamp to the LAST live position so the
-        # stream stays monotone through the tail (the 0-padding of ud
-        # would otherwise jump the stream back to position 0).
-        last_live = jnp.max(jnp.where(active, dc, 0))
-        dcm = jnp.where(r >= 0, dc, last_live)
-        g, gstart, gend, of_g = gene_of_pos_block_mono(
-            gene_start, gblock, dcm, gsteps, interpret=interpret
-        )
-        oflow = jnp.maximum(oflow, of_g)
+    if gblock is not None:
+        g = gene_of_pos_block(gene_start, gblock, dc, gsteps)
     else:
-        if gblock is not None:
-            g = gene_of_pos_block(gene_start, gblock, dc, gsteps)
-        else:
-            g = gene_of_pos(gene_start, dc)
-        gstart = gene_start[g]
-        gend = gene_start[g + 1]
+        g = gene_of_pos(gene_start, dc)
+    gstart = gene_start[g]
+    gend = gene_start[g + 1]
     glen = gend - gstart
     s_local = dc - gstart
-    if mgather and not dorder:
-        # (r, d) order: the read-row stream is monotone.  Inactive lanes
-        # sort to the end; mapping them to the LAST read row (not row 0)
-        # keeps the index stream nondecreasing.
-        from . import pallas_gather as _pg
-
-        rc_mono = jnp.where(r >= 0, rc, jnp.int32(rpacked.shape[0] - 1))
-        # lengths shares the row-id stream: its element window must cover
-        # at least the row window's span.
-        rlen, of_l = _pg.monotone_gather(
-            lengths, rc_mono, window=max(8192, mg_rows_window),
-            interpret=interpret,
-        )
-        rw_mono, of_r = _pg.monotone_gather_rows(
-            rpacked, rc_mono, window_rows=mg_rows_window, interpret=interpret
-        )
-        oflow = jnp.maximum(of_l, of_r)
-    else:
-        rlen = lengths[rc]
+    rlen = lengths[rc]
 
     # ---- SWAR mismatch count over the aligned diagonal (once) ----
     rshift = (dc & 7).astype(jnp.uint32) * 4
-    if trows is not None and mgather and dorder:
-        # (d, r) order: the TARGET row stream (trows row = dc >> 6) is
-        # monotone — windowed DMA instead of a random row gather over the
-        # engine's largest table.  Only truly-inactive lanes (r < 0, which
-        # sort to the END) map to the last row; negative-diagonal lanes
-        # sort to the FRONT and dc = clip(d, 0, ..) already sends them to
-        # row 0, which keeps the stream monotone (mapping them to the
-        # last row would guarantee a window overflow and silently
-        # self-disable the kernel on routine batches).
-        from . import pallas_gather as _pg
-
-        row = jnp.where(
-            r >= 0, jnp.clip(dc >> 6, 0, trows.shape[0] - 1),
-            jnp.int32(trows.shape[0] - 1),
-        )
-        t_rows, of_t = _pg.monotone_gather_rows(
-            trows, row, window_rows=mg_rows_window, interpret=interpret
-        )
-        oflow = jnp.maximum(oflow, of_t)
-        tw = _trows_select(t_rows, (dc >> 3) & 7, nwords)
-    elif trows is not None:
+    if trows is not None:
         tw = _trows_fetch(trows, dc, nwords)  # (C, NW+1), one gather/lane
     else:
         base = dc >> 3
@@ -401,8 +285,7 @@ def verify_diagonals_packed(
     )
     taligned = lowpart | hipart
 
-    rw = rw_mono if (mgather and not dorder) else rpacked[rc]
-    x = taligned ^ rw
+    x = taligned ^ rpacked[rc]
     wordbase = jnp.arange(nwords, dtype=jnp.int32) * BASES_PER_WORD
     mask_len = _nibble_mask(rlen[:, None] - wordbase[None, :])
     x = x & mask_len
@@ -426,7 +309,7 @@ def verify_diagonals_packed(
         okbits = okbits | (bit.astype(jnp.int32) << k)
 
     okbits = jnp.where(active & budget_ok, okbits, 0)
-    return nx, g.astype(jnp.int32), s_local.astype(jnp.int32), okbits, oflow
+    return nx, g.astype(jnp.int32), s_local.astype(jnp.int32), okbits
 
 
 def verify_pairs_packed(
@@ -487,10 +370,7 @@ def verify_pairs_packed(
         tw = _trows_fetch(trows, dc, nwords)  # (P, NW+1), one gather/lane
     else:
         # (NW+1) words per pair as a plain element gather over an index
-        # matrix.  NB: sliced gathers (lax.gather with slice_sizes>1, or a
-        # vmapped dynamic_slice) scalarize into a serial per-pair loop on
-        # TPU — measured 131072 sequential slices; element gathers stay
-        # batched.
+        # matrix.
         base = dc >> 3  # dc // 8
         widx = jnp.arange(nwords + 1, dtype=jnp.int32)
         gidx = jnp.clip(base[:, None] + widx[None, :], 0, tpacked.shape[0] - 1)

@@ -1,7 +1,7 @@
 """Full-read pair verification — byte-path reference implementation.
 
-The TPU replacement for muscato_confirm's all-pairs Hamming check per k-mer
-group (/root/reference/cmd/muscato_confirm/main.go:171-250): a dense
+The device replacement for muscato_confirm's all-pairs Hamming check per
+k-mer group (cmd/muscato_confirm/main.go:171-250 in the reference): a dense
 (pairs x MaxReadLength) mismatch count.  The production kernel is the SWAR
 variant in ops/packed.py (bit-identical, fuzz-tested against this one);
 this byte-level version is the readable specification.

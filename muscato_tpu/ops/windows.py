@@ -1,7 +1,7 @@
 """Window-key packing and entropy gating (device ops).
 
 The reference screens with buzhash32 rolling hashes over byte strings
-(/root/reference/cmd/muscato_screen/main.go:104-113, 319-323).  On TPU a
+(cmd/muscato_screen/main.go:104-113, 319-323 in the reference).  Here a
 rolling hash is unnecessary: windows have a fixed width, so the window
 content itself — base-5-packed into an integer — is the key.
 

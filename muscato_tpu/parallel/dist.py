@@ -1,13 +1,12 @@
 """Multi-host runtime initialization and mesh construction.
 
 The reference has no distributed runtime (its IPC is Unix pipes,
-/root/reference/cmd/muscato/main.go:55-58); this module is the entry point
-for running the sharded engine (parallel/mesh.py) across TPU hosts:
+cmd/muscato/main.go:55-58 in the reference); this module is the entry point
+for running the sharded engine (parallel/mesh.py) across several hosts:
 
-  - `initialize()` wires `jax.distributed` from standard TPU pod
-    environment variables (or explicit args) so every host sees the global
-    device set; the driver calls it when `--Coordinator`/`--ProcessCount`
-    are set (engine/driver.py);
+  - `initialize()` wires `jax.distributed` from explicit arguments so
+    every host sees the global device set; the driver calls it when
+    `--Coordinator`/`--ProcessCount` are set (engine/driver.py);
   - `pod_mesh(dp, mp)` builds the 2-D mesh over all global devices, read
     data parallelism over "dp" and gene-range index shards over "mp";
   - every host parses the same inputs (read dedup is global, so each host
@@ -18,8 +17,8 @@ for running the sharded engine (parallel/mesh.py) across TPU hosts:
     process collective (mesh._addressable_by_dp + process_allgather);
   - process 0 alone writes the report files.
 
-Single-host multi-chip needs no initialize(); `jax.devices()` already
-shows the local chips.  The true multi-process path is exercised by
+Single-host multi-card needs no initialize(); `jax.devices()` already
+shows the local cards.  The true multi-process path is exercised by
 tests/test_multihost.py (2 OS processes x 4 virtual CPU devices, Gloo
 collectives); `__graft_entry__.dryrun_multichip` additionally validates
 the sharded step on a single-process virtual mesh.
@@ -39,8 +38,9 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed for a multi-host run.
 
-    With no arguments, relies on the TPU pod runtime's automatic
-    environment discovery (the standard path on Cloud TPU slices).
+    A GPU host has no runtime that tells JAX of the cluster, so give the
+    coordinator address (host:port), the process count and this
+    process's id.
     """
     kwargs = {}
     if coordinator_address is not None:

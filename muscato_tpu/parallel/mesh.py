@@ -2,7 +2,7 @@
 
 The reference has no distributed capability at all — its parallelism is
 goroutines + OS processes on one host (SURVEY.md section 2.4).  This module
-is the TPU-native scaling story prescribed by BASELINE.json:
+spreads the engine over several devices:
 
   - a 2-D jax.sharding.Mesh ("dp", "mp"): read batches are sharded over
     "dp" (data parallelism), the target index is sharded by contiguous gene
@@ -200,32 +200,18 @@ def _addressable_by_dp(arr, dp: int, axis0_size: int):
     return out
 
 
-def _probe_step(
-    rpacked, lengths, skeys, q1s, *, width, min_dinuc, pjoin, pjoin_rows,
-    interpret,
-):
+def _probe_step(rpacked, lengths, skeys, q1s, *, width, min_dinuc):
     """Stage 1 per-device body: probe the local read block against the
-    local index shard (sort-merge join, or the Pallas sorted-join when
-    MUSCATO_PJOIN is on — the same engine selection as the single-chip
+    local index shard (sort-merge join, the same probe as the single-chip
     path).  Emits the compacted slot arrays plus the exact pair total;
     the host fetches only the (dp, mp) totals to size the expand stage's
     pair buffer exactly, mirroring engine.pipeline's probe-first flow."""
-    skeys = skeys[0]
-    if pjoin:
-        counts, lo, qid, _kf, _k2, total, totalf = (
-            fused._probe_windows_pjoin_impl(
-                rpacked, lengths, q1s, skeys,
-                width=width, min_dinuc=min_dinuc,
-                window_rows=pjoin_rows, interpret=interpret,
-            )
-        )
-    else:
-        counts, lo, qid, _kf, _k2, total, totalf = fused._probe_windows_impl(
-            rpacked, lengths, q1s, skeys, width=width, min_dinuc=min_dinuc,
-        )
+    counts, lo, qid, _kf, _k2, total, totalf = fused._probe_windows_impl(
+        rpacked, lengths, q1s, skeys[0], width=width, min_dinuc=min_dinuc,
+    )
     # keyf/key2f are read-only functions of the dp block; stage 2
     # recomputes them (one packed extraction) instead of carrying two
-    # nflat-sized operands through HBM between the stages.
+    # nflat-sized operands through device memory between the stages.
     return (
         counts[None, None], lo[None, None], qid[None, None],
         total[None, None], totalf[None, None],
@@ -260,16 +246,12 @@ def _rank_gathered(buf, nsurv, totalf, gene_base, mm, mmtol, *, surv_cap,
 def _verify_step_dedup(
     counts, lo, qid, rpacked, lengths, gene_start, spos, tpacked, trows,
     gblock, gene_base, budget, q1s, *, width, min_dinuc, max_read_length,
-    pair_cap, vchunk, surv_cap, smax, gsteps, mm, mmtol, match_mode,
-    mgather, mg_spos, mg_rows, mg_window, mg_rows_window, interpret,
-    dorder, pexpand, mg_keys, mg_keys_window, fixup=0,
+    pair_cap, vchunk, surv_cap, smax, gsteps, mm, mmtol, match_mode, dorder,
 ):
     """Stage 2 per-device body (diagonal-dedup engine): the SAME expand +
     verify the single-chip path runs (fused._expand_pairs_impl /
-    _verify_diagonals_impl with the row-gather trows view, the gene block
-    table, and the monotone-gather kernels when enabled), then the mp
-    merge + on-device rank.  A monotone-gather window overflow is
-    returned as a separate per-device flag (never folded into counts)."""
+    _verify_diagonals_impl with the row-gather trows view and the gene
+    block table), then the mp merge + on-device rank."""
     counts, lo, qid = counts[0, 0], lo[0, 0], qid[0, 0]
     gene_start, spos, tpacked = gene_start[0], spos[0], tpacked[0]
     trows, gblock, gene_base = trows[0], gblock[0], gene_base[0]
@@ -277,37 +259,18 @@ def _verify_step_dedup(
     keyf, key2f, _valid = fused._window_queries(
         rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
     )
-    qid_s, u_idx, ur, ud, nuniq, _total, totalf, oflow = (
-        fused._expand_pairs_impl(
-            counts, lo, qid, q1s, spos, nreads=nreads, pair_cap=pair_cap,
-            mgather=mg_spos, mg_window=mg_window, interpret=interpret,
-            dorder=dorder, smax=smax, max_read_length=max_read_length,
-            pexpand=pexpand, fixup=fixup,
-        )
+    qid_s, u_idx, ur, ud, nuniq, _total, totalf = fused._expand_pairs_impl(
+        counts, lo, qid, q1s, spos, nreads=nreads, pair_cap=pair_cap,
+        dorder=dorder, smax=smax, max_read_length=max_read_length,
     )
-    surv, nsurv, oflow_v, oflow_k = fused._verify_diagonals_impl(
+    surv, nsurv = fused._verify_diagonals_impl(
         qid_s, u_idx, ur, ud, nuniq, keyf, key2f, q1s, rpacked, lengths,
         tpacked, gene_start, budget, trows, gblock,
         nreads=nreads, width=width, max_read_length=max_read_length,
         vchunk=vchunk, surv_cap=surv_cap, smax=smax, gsteps=gsteps,
-        mgather=mgather, mg_rows=mg_rows,
-        mg_rows_window=mg_rows_window, interpret=interpret,
-        dorder=dorder, mg_keys=mg_keys, mg_keys_window=mg_keys_window,
-        fixup=fixup,
     )
-    # Bit 0: postings-window overflow, bit 1: rows-window overflow,
-    # bit 2: survivor cap-key fetch overflow — per-stream so the host
-    # disables only the overflowing stream.
-    flag = jnp.int32(0)
-    if mg_spos:
-        flag = flag | oflow
-    if mg_rows:
-        flag = flag | (oflow_v << 1)
-    if mg_keys:
-        flag = flag | (oflow_k << 2)
-    out = _rank_gathered(surv, nsurv, totalf, gene_base, mm, mmtol,
-                         surv_cap=surv_cap, match_mode=match_mode)
-    return out + (jnp.reshape(flag, (1, 1)),)
+    return _rank_gathered(surv, nsurv, totalf, gene_base, mm, mmtol,
+                          surv_cap=surv_cap, match_mode=match_mode)
 
 
 def _verify_step_streamed(
@@ -331,9 +294,8 @@ def _verify_step_streamed(
         max_read_length=max_read_length,
         pair_chunk=pair_chunk, surv_cap=surv_cap, smax=smax, gsteps=gsteps,
     )
-    out = _rank_gathered(surv, nsurv, totalf, gene_base, mm, mmtol,
-                         surv_cap=surv_cap, match_mode=match_mode)
-    return out + (jnp.zeros((1, 1), jnp.int32),)
+    return _rank_gathered(surv, nsurv, totalf, gene_base, mm, mmtol,
+                          surv_cap=surv_cap, match_mode=match_mode)
 
 
 _JIT_CACHE: dict = {}
@@ -391,7 +353,7 @@ def _gather_rows_to_primary(local: "np.ndarray", ncol: int):
     Replaces the symmetric process_allgather merge: only the primary
     ranks and writes results (run_matching_sharded), so shipping every
     retained row to every process was nproc x wasted DCN traffic and
-    per-host RAM in the tail (round-3 VERDICT next #7).  With this path
+    per-host RAM in the tail.  With this path
     non-primary receive volume in the merge is zero."""
     import os as _os
 
@@ -481,7 +443,6 @@ def sharded_match_arrays(
         timings["pack_s"] = round(_time.perf_counter() - t0, 4)
     nwords = rpacked.shape[1]
     trows, gblock, gsteps = sidx.verify_aux(nwords)
-    interpret = jax.default_backend() == "cpu"
     multi = jax.process_count() > 1
 
     probe_in = (P("dp", None), P("dp"), P("mp", None), P())
@@ -501,7 +462,7 @@ def sharded_match_arrays(
         P(),  # budget
         P(),  # q1s
     )
-    verify_out = (P("dp"),) * 4 + (P("dp", "mp"),)
+    verify_out = (P("dp"),) * 4
 
     if multi:
         # The index side is globalized once per (index, mesh, width) and
@@ -531,16 +492,15 @@ def sharded_match_arrays(
                  sidx.gene_base, budget, q1s)
         skeys_g, q1s_g = sidx.skeys, q1s
         # Explicit dp-sharded placement for the read arrays: without it
-        # each shard_map call (and every ladder retry) re-uploads the
-        # host matrix — on a relay-backed host that upload dominated the
-        # round-5 mesh 1x1 sanity timing (68s vs 5.2s plain).
+        # each shard_map call (and every capacity retry) re-uploads the
+        # host matrix.
         sh = jax.sharding.NamedSharding(mesh, P("dp", None))
         rp_g = jax.device_put(rpacked, sh)
         len_g = jax.device_put(
             lengths, jax.sharding.NamedSharding(mesh, P("dp"))
         )
 
-    # ---- Stage 1: probe (with the single-chip pjoin fallback ladder) ----
+    # ---- Stage 1: probe ----
     if timings is not None:
         # Single-process mode passes host arrays straight into shard_map
         # (upload then happens inside the first mapped call and lands in
@@ -550,45 +510,24 @@ def sharded_match_arrays(
                 a.block_until_ready()
         timings["upload_s"] = round(_time.perf_counter() - t0, 4)
         t0 = _time.perf_counter()
-    while True:
-        pjoin = fused.pjoin_enabled()
-        pjoin_rows = fused._PJOIN_ROWS * fused.pjoin_scale()
-        pkey = ("probe", _mesh_key(mesh), cfg.WindowWidth, cfg.MinDinuc, pjoin,
-                pjoin_rows, interpret)
-        mapped_probe = _cached_mapped(pkey, lambda: jax.shard_map(
-            partial(_probe_step, width=cfg.WindowWidth,
-                    min_dinuc=cfg.MinDinuc, pjoin=pjoin,
-                    pjoin_rows=pjoin_rows, interpret=interpret),
-            mesh=mesh, in_specs=probe_in, out_specs=probe_out,
-            check_vma=False,
-        ))
-        counts, lo, qid, total_d, totalf_d = mapped_probe(
-            rp_g, len_g, skeys_g, q1s_g
+    pkey = ("probe", _mesh_key(mesh), cfg.WindowWidth, cfg.MinDinuc)
+    mapped_probe = _cached_mapped(pkey, lambda: jax.shard_map(
+        partial(_probe_step, width=cfg.WindowWidth, min_dinuc=cfg.MinDinuc),
+        mesh=mesh, in_specs=probe_in, out_specs=probe_out,
+        check_vma=False,
+    ))
+    counts, lo, qid, total_d, totalf_d = mapped_probe(
+        rp_g, len_g, skeys_g, q1s_g
+    )
+    # Check the float pair total: an int32-wrapped total must raise,
+    # never size a buffer.
+    _, tfmax = _global_minmax(totalf_d)
+    if tfmax > float(2**30):
+        raise ValueError(
+            "candidate pair count on one device exceeds the 2**30 "
+            "expansion limit; re-run with a smaller ReadBatch"
         )
-        # Check the float pair total FIRST: an int32-wrapped sort-merge
-        # total is also negative and must raise, not be misread as a
-        # pjoin window overflow (which would ladder forever).
-        _, tfmax = _global_minmax(totalf_d)
-        if tfmax > float(2**30):
-            raise ValueError(
-                "candidate pair count on one device exceeds the 2**30 "
-                "expansion limit; re-run with a smaller ReadBatch"
-            )
-        tmin, tmax = _global_minmax(total_d)
-        if tmin >= 0:
-            break
-        if fused.pjoin_scale() < fused.PJOIN_MAX_SCALE:
-            fused.set_pjoin_scale(fused.pjoin_scale() * 4)
-            logger.warning(
-                "mesh: sorted-join probe window overflow; growing window "
-                "to x%d and re-probing", fused.pjoin_scale(),
-            )
-        else:
-            logger.warning(
-                "mesh: sorted-join probe window overflow at max scale; "
-                "re-probing via the sort-merge path"
-            )
-            fused.set_pjoin(False)
+    _, tmax = _global_minmax(total_d)
 
     max_total = int(tmax)
     use_dedup = (
@@ -600,11 +539,6 @@ def sharded_match_arrays(
 
     # ---- Stage 2: expand + verify + mp-merge + on-device rank ----
     while True:
-        mgather = fused.mgather_enabled() and use_dedup
-        mg_spos, mg_rows, mg_keys = (
-            (x and mgather) for x in fused.mg_streams()
-        )
-        scale = fused.mg_scale()
         if use_dedup:
             pair_cap = max(_PAIR_FLOOR, _bucket_ceil(max_total))
             statics = dict(
@@ -613,23 +547,7 @@ def sharded_match_arrays(
                 pair_cap=pair_cap, vchunk=min(vchunk, pair_cap),
                 surv_cap=surv_cap, smax=sidx.smax, gsteps=gsteps,
                 mm=cfg.MaxMatches, mmtol=cfg.MMTol,
-                match_mode=cfg.MatchMode, mgather=mgather,
-                mg_spos=mg_spos, mg_rows=mg_rows, mg_keys=mg_keys,
-                mg_window=fused._MG_WINDOW * scale,
-                mg_rows_window=min(
-                    fused._MG_ROWS_WINDOW * scale,
-                    fused._MG_ROWS_WINDOW_CAP,
-                ),
-                mg_keys_window=min(
-                    fused._MG_KEYS_WINDOW * scale,
-                    fused._MG_KEYS_WINDOW_CAP,
-                ),
-                interpret=interpret and (
-                    mgather or fused.pexpand_enabled()
-                ),
-                dorder=fused.dorder_enabled(),
-                pexpand=fused.pexpand_gate(pair_cap),
-                fixup=fused._MG_FIXUP,
+                match_mode=cfg.MatchMode, dorder=fused.dorder_enabled(),
             )
             vkey = ("vdedup", _mesh_key(mesh)) + tuple(sorted(statics.items()))
             step = _verify_step_dedup
@@ -648,46 +566,9 @@ def sharded_match_arrays(
             mesh=mesh, in_specs=verify_in, out_specs=verify_out,
             check_vma=False,
         ))
-        rows_d, count_d, nsurv, totalf, flag_d = mapped_verify(
+        rows_d, count_d, nsurv, totalf = mapped_verify(
             counts, lo, qid, rp_g, len_g, *fixed
         )
-        if mgather:
-            # One bit per stream per device (postings / rows / keys):
-            # max-reduce each bit separately so a device overflowing one
-            # stream cannot hide another device's other-stream overflow.
-            _, f_spos = _global_minmax(flag_d & 1)
-            _, f_rows = _global_minmax((flag_d >> 1) & 1)
-            _, f_keys = _global_minmax(flag_d >> 2)
-            if f_spos > 0 or f_rows > 0 or f_keys > 0:
-                spos_on, rows_on, keys_on = fused.mg_streams()
-                growable = (
-                    f_spos > 0
-                    or (f_keys > 0 and not fused.mg_keys_at_cap())
-                    or (f_rows > 0 and not fused.mg_rows_at_cap())
-                )
-                if fused.mg_scale() < fused.MG_MAX_SCALE and growable:
-                    fused.set_mg_scale(fused.mg_scale() * 4)
-                    if f_rows > 0 and fused.mg_rows_at_cap():
-                        rows_on = False
-                    if f_keys > 0 and fused.mg_keys_at_cap():
-                        keys_on = False
-                    fused.set_mg_streams(spos_on, rows_on, keys_on)
-                    logger.warning(
-                        "mesh: monotone-gather window overflow; growing "
-                        "windows to x%d and re-running", fused.mg_scale(),
-                    )
-                else:
-                    fused.set_mg_streams(
-                        spos_on and not f_spos > 0,
-                        rows_on and not f_rows > 0,
-                        keys_on and not f_keys > 0,
-                    )
-                    logger.warning(
-                        "mesh: monotone-gather window overflow at max "
-                        "scale; streams now spos=%s rows=%s keys=%s",
-                        *fused.mg_streams(),
-                    )
-                continue
         _, ns_max = _global_minmax(nsurv)
         if int(ns_max) > surv_cap:
             # Exact pow2 bucket over the known need (same policy as the
@@ -804,7 +685,7 @@ def run_matching_sharded(cfg, rs, sidx: ShardedIndex, mesh: Mesh):
         # Rank once, on the primary: every process holds the identical
         # global row set after the merge, so N-1 identical host rank
         # passes would be pure duplicated work (it grows with total
-        # matches; round-2 VERDICT weak #7).
+        # matches).
         logger.info("non-primary process: rank deferred to the primary")
         return pl.MatchResult(z, z, z, z)
     if not all_rows or not sum(len(x) for x in all_rows):

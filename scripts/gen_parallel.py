@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Parallel disk-streamed gendat for the 100M-read run (host-only).
 
-gendat.generate_big is a single sequential RNG stream at ~4.4MB/s; a
-100M-read fastq (~21GB) takes ~80 min on one core.  This splits the
+gendat.generate_big is a single sequential RNG stream, slow for a
+100M-read fastq (~21GB) on one core.  This splits the
 read range into per-worker chunk ranges, each seeded independently as
 default_rng((seed, chunk_index)) — the data is equally realistic, just
 not bit-identical to the sequential stream — and concatenates the part
@@ -11,6 +11,7 @@ deterministic seed-7 draw as generate_big, so hit density and the
 target DB are unchanged.
 
 Usage: python -u scripts/gen_parallel.py [dir] [n_reads] [workers]
+Every worker runs with JAX_PLATFORMS=cpu: none of them needs the card.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def worker(out_dir: str, w: int, c_lo: int, c_hi: int, n_reads: int) -> None:
 
 
 def main() -> int:
-    out_dir = sys.argv[1] if len(sys.argv) > 1 else "/root/r5_100m"
+    out_dir = sys.argv[1] if len(sys.argv) > 1 else "run100m_out"
     n_reads = int(sys.argv[2]) if len(sys.argv) > 2 else 100_000_000
     nw = int(sys.argv[3]) if len(sys.argv) > 3 else 4
     if len(sys.argv) > 4 and sys.argv[4] == "--worker":

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""Reference-scale single-host demonstration (round-4 VERDICT next #4):
+"""Reference-scale single-host demonstration:
 100M reads through the FULL muscato driver against a 100M-base target DB.
 
 The reference claims "hundreds of millions of reads and target sequences"
-(/root/reference/README.md:4-6); this composes every scale feature the
+(README.md:4-6 of the reference); this composes every scale feature the
 repo built for that claim in ONE run: disk-streamed gendat
 (gendat.generate_big), bounded-memory chunked prep (PrepChunk),
 IndexFile-cached index, ReadBatch device streaming, and the vectorized
@@ -13,9 +13,11 @@ pages an idle box never evicts).
 
 Usage:
   python -u scripts/run_100m.py gen   [dir]   # host-only: write the data
-  python -u scripts/run_100m.py run   [dir]   # full driver run (uses TPU)
+  python -u scripts/run_100m.py run   [dir]   # full driver run (on the GPU)
   python -u scripts/run_100m.py both  [dir]
-Default dir /root/r5_100m; N reads via N_READS env (default 100_000_000).
+Default dir run100m_out; N reads via N_READS env (default 100_000_000).
+Only the driver process opens the card; the helper processes run with
+JAX_PLATFORMS=cpu.
 Artifacts: dir/run100m.json.
 """
 
@@ -131,7 +133,7 @@ def run(d: str) -> dict:
 
 def main() -> int:
     mode = sys.argv[1] if len(sys.argv) > 1 else "both"
-    d = sys.argv[2] if len(sys.argv) > 2 else "/root/r5_100m"
+    d = sys.argv[2] if len(sys.argv) > 2 else "run100m_out"
     os.makedirs(d, exist_ok=True)
     outp = os.path.join(d, "run100m.json")
     rec = {}

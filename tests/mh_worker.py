@@ -5,7 +5,7 @@ Invoked by tests/test_multihost.py as
 
 Each process owns 4 virtual CPU devices; jax.distributed + Gloo provide
 the cross-process collectives, so the sharded engine runs exactly the
-multi-host code path it would on a TPU pod (global jax.Arrays staged per
+multi-host code path it would across GPU hosts (global jax.Arrays staged per
 process, all_gather over "mp" inside shard_map, process-level merge of
 retained rows).  Every process writes its MatchResult so the test can
 assert cross-process agreement and parity with the single-device engine.

@@ -88,23 +88,12 @@ def test_sharded_equals_single(dp, mp, n_reads):
     assert got == expected
 
 
-@pytest.mark.parametrize(
-    "streams,fixup",
-    [
-        ((True, True, True), 0),    # every monotone-gather stream on
-        ((False, True, True), 0),   # the TUNED.json production combination
-        ((True, False, False), 0),  # postings-only (MG_SPOS riding
-                                    # lo-order slots; rows/keys off)
-        ((True, True, True), 64),   # hybrid span-overflow fix-up traced
-                                    # inside shard_map (top_k + patch)
-    ],
-)
-def test_sharded_with_kernels_equals_single(streams, fixup, monkeypatch):
-    """ALL engine kernels/flags inside shard_map (interpret mode on
-    CPU) must produce the identical sharded result — the mesh path runs
-    the same kernel-flagged engine as the single-chip loop.  The stream
-    matrix covers MG_SPOS on the lo-ordered slot compaction and the
-    exact TUNED flag set (round-4 VERDICT next #8)."""
+@pytest.mark.parametrize("nodedup", [False, True])
+@pytest.mark.parametrize("dorder", [False, True])
+def test_sharded_with_kernels_equals_single(dorder, nodedup, monkeypatch):
+    """Both pair orders and both expand+verify engines (diagonal dedup and
+    streaming) inside shard_map must produce the single-device result —
+    the mesh path runs the same engine as the single-device loop."""
     from muscato_tpu.ops import fused
 
     rng = np.random.default_rng(29)
@@ -114,29 +103,18 @@ def test_sharded_with_kernels_equals_single(streams, fixup, monkeypatch):
         MaxReadLength=max_rl, MMTol=1, MaxMatches=10**6, MatchMode="best",
     )
     rs, ts = _mk_sets(rng, n_reads=48, n_genes=12, width=width, max_rl=max_rl)
+    monkeypatch.setattr(fused, "_DORDER", [False])
     single = pipeline.run_matching(cfg, rs, ts)
     expected = set(
         zip(single.read_row.tolist(), single.gene.tolist(),
             single.start.tolist(), single.nmiss.tolist())
     )
+    assert expected
     mesh = pmesh.make_mesh(2, 2)
     sidx = pmesh.shard_targets(ts, width, 2)
-    monkeypatch.setattr(fused, "_MG_FIXUP", fixup)
-    fused.set_mgather(True)
-    fused.set_mg_streams(*streams)
-    fused.set_pjoin(True)
-    fused.set_dorder(True)
-    fused.set_pexpand(True)
-    try:
-        mr = pmesh.run_matching_sharded(cfg, rs, sidx, mesh)
-    finally:
-        fused.set_mgather(False)
-        fused.set_mg_streams(False, False, False)
-        fused.set_pjoin(False)
-        fused.set_dorder(False)
-        fused.set_pexpand(False)
-        fused.set_mg_scale(1)
-        fused.set_pjoin_scale(1)
+    cfg.NoDedup = nodedup
+    monkeypatch.setattr(fused, "_DORDER", [dorder])
+    mr = pmesh.run_matching_sharded(cfg, rs, sidx, mesh)
     got = set(
         zip(mr.read_row.tolist(), mr.gene.tolist(),
             mr.start.tolist(), mr.nmiss.tolist())

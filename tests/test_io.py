@@ -1,7 +1,8 @@
 """IO-layer tests: snappy codec, sequence codec, prep_targets golden parity.
 
 Golden inputs/outputs come from the reference repo's test data
-(/root/reference/tests/data/prep_targets/00-07, manifest tests/tests.toml).
+(tests/data/prep_targets/00-07, manifest tests/tests.toml), at
+conftest.REFERENCE_DATA; those tests skip where it is absent.
 """
 
 import gzip
@@ -14,7 +15,10 @@ import pytest
 
 from muscato_tpu.io import reads, seqcodec, sz, targets
 
-REF = "/root/reference/tests/data/prep_targets"
+
+@pytest.fixture
+def ref(reference_tests):
+    return os.path.join(reference_tests, "data", "prep_targets")
 
 
 # ------------------------------------------------------------------ snappy ---
@@ -43,9 +47,9 @@ def test_snappy_block_roundtrip():
         assert sz.block_decompress(sz.block_compress(data)) == data
 
 
-def test_snappy_reads_reference_file():
+def test_snappy_reads_reference_file(ref):
     # Real golang/snappy-compressed file from the reference test data.
-    raw = sz.read_bytes(os.path.join(REF, "06", "genes.txt.sz"))
+    raw = sz.read_bytes(os.path.join(ref, "06", "genes.txt.sz"))
     assert raw.split(b"\n")[0].startswith(b"gene1\t")
 
 
@@ -85,16 +89,16 @@ PREP_CASES = [
 
 
 @pytest.mark.parametrize("case,fname,rev", PREP_CASES)
-def test_prep_targets_golden(case, fname, rev, tmp_path):
-    src = os.path.join(REF, case, fname)
+def test_prep_targets_golden(case, fname, rev, tmp_path, ref):
+    src = os.path.join(ref, case, fname)
     dst = tmp_path / fname
     shutil.copy(src, dst)
 
     seq_path, ids_path = targets.prep_targets(str(dst), rev=rev)
 
-    with open(os.path.join(REF, case, "expected_sequences.txt"), "rb") as f:
+    with open(os.path.join(ref, case, "expected_sequences.txt"), "rb") as f:
         exp_seq = f.read()
-    with open(os.path.join(REF, case, "expected_ids.txt"), "rb") as f:
+    with open(os.path.join(ref, case, "expected_ids.txt"), "rb") as f:
         exp_ids = f.read()
 
     assert sz.read_bytes(seq_path) == exp_seq
@@ -116,8 +120,8 @@ def test_prepared_names():
     )
 
 
-def test_load_targets(tmp_path):
-    src = os.path.join(REF, "02", "genes.txt")
+def test_load_targets(tmp_path, ref):
+    src = os.path.join(ref, "02", "genes.txt")
     dst = tmp_path / "genes.txt"
     shutil.copy(src, dst)
     seq_path, ids_path = targets.prep_targets(str(dst))

@@ -1,6 +1,6 @@
 """Run the reference's own test manifest (tests/tests.toml) end to end.
 
-Mirrors the reference harness (/root/reference/tests/test.go): each [[Test]]
+Mirrors the reference harness (tests/test.go upstream): each [[Test]]
 entry runs as a real command against a copy of the reference data tree, and
 each [actual, expected] file pair is compared with transparent .sz
 decompression (test.go:94-135).
@@ -22,11 +22,10 @@ import pytest
 from muscato_tpu import cli
 from muscato_tpu.io import sz, targets
 
-REF_TESTS = "/root/reference/tests"
 
 
-def _load_manifest():
-    with open(os.path.join(REF_TESTS, "tests.toml"), "rb") as f:
+def _load_manifest(ref_tests):
+    with open(os.path.join(ref_tests, "tests.toml"), "rb") as f:
         return tomllib.load(f)["Test"]
 
 
@@ -36,10 +35,10 @@ def _rename_prepared(dirpath: str, raw: str) -> None:
     os.replace(ids, os.path.join(dirpath, "genes_ids.txt.sz"))
 
 
-@pytest.fixture(scope="module")
-def tree(tmp_path_factory):
-    root = tmp_path_factory.mktemp("reftests")
-    shutil.copytree(os.path.join(REF_TESTS, "data"), root / "data")
+@pytest.fixture
+def tree(tmp_path, reference_tests):
+    root = tmp_path / "reftests"
+    shutil.copytree(os.path.join(reference_tests, "data"), root / "data")
     # Pre-pass: muscato dirs without a prep entry in the manifest.
     for case in ("00", "01"):
         d = str(root / "data" / "muscato" / case)
@@ -48,8 +47,8 @@ def tree(tmp_path_factory):
     return root
 
 
-def test_reference_manifest(tree):
-    manifest = _load_manifest()
+def test_reference_manifest(tree, reference_tests):
+    manifest = _load_manifest(reference_tests)
     assert len(manifest) == 17
     ran = 0
     cwd = os.getcwd()

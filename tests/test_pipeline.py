@@ -1,6 +1,6 @@
 """End-to-end golden parity tests against the reference's muscato cases.
 
-Each case from /root/reference/tests/data/muscato/00-04 is run through the
+Each case from the reference's tests/data/muscato/00-04 is run through the
 full driver (prep targets -> match -> report) in a temp dir, and result.txt
 plus the nonmatch fastq are compared byte-for-byte with the goldens
 (result_e.txt, result.nonmatch_e.txt), exactly as tests/tests.toml does.
@@ -21,15 +21,19 @@ from muscato_tpu import config as config_mod
 from muscato_tpu.engine import driver
 from muscato_tpu.io import targets
 
-REF = "/root/reference/tests/data/muscato"
+
+@pytest.fixture
+def ref(reference_tests):
+    return os.path.join(reference_tests, "data", "muscato")
+
 
 # case -> -rev for prep_targets (case 04 uses a reverse-complemented DB,
 # tests/tests.toml "muscato 4 prep")
 CASES = {"00": False, "01": False, "02": False, "03": False, "04": True}
 
 
-def run_case(case: str, tmp_path, mutate_cfg=None):
-    src = os.path.join(REF, case)
+def run_case(case: str, tmp_path, ref, mutate_cfg=None):
+    src = os.path.join(ref, case)
     work = tmp_path / case
     work.mkdir(parents=True)
     for f in ("reads.fastq", "genes.txt", "config.json"):
@@ -60,24 +64,24 @@ def run_case(case: str, tmp_path, mutate_cfg=None):
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_muscato_golden(case, tmp_path):
-    work = run_case(case, tmp_path)
+def test_muscato_golden(case, tmp_path, ref):
+    work = run_case(case, tmp_path, ref)
 
     with open(work / "result.txt", "rb") as f:
         got = f.read()
-    with open(os.path.join(REF, case, "result_e.txt"), "rb") as f:
+    with open(os.path.join(ref, case, "result_e.txt"), "rb") as f:
         exp = f.read()
     assert got == exp, f"result.txt mismatch for case {case}"
 
     with open(work / "result.nonmatch.txt.fastq", "rb") as f:
         got_nm = f.read()
-    with open(os.path.join(REF, case, "result.nonmatch_e.txt"), "rb") as f:
+    with open(os.path.join(ref, case, "result.nonmatch_e.txt"), "rb") as f:
         exp_nm = f.read()
     assert got_nm == exp_nm, f"nonmatch mismatch for case {case}"
 
 
-def test_stats_outputs(tmp_path):
-    work = run_case("03", tmp_path)
+def test_stats_outputs(tmp_path, ref):
+    work = run_case("03", tmp_path, ref)
     with open(work / "result_readstats.txt", "rb") as f:
         rstats = f.read()
     # 3 reads all matching; read ids are single names here.
@@ -93,8 +97,8 @@ def test_stats_outputs(tmp_path):
     )
 
 
-def test_logs_and_temp(tmp_path):
-    work = run_case("00", tmp_path)
+def test_logs_and_temp(tmp_path, ref):
+    work = run_case("00", tmp_path, ref)
     logdirs = os.listdir(work / "logs")
     assert len(logdirs) == 1
     logdir = work / "logs" / logdirs[0]
@@ -107,22 +111,22 @@ def test_logs_and_temp(tmp_path):
     assert tmpdirs == []
 
 
-def test_read_batch_streaming(tmp_path):
+def test_read_batch_streaming(tmp_path, ref):
     """Multi-batch streaming must match the single-batch result."""
     def mutate(raw):
         raw["ReadBatch"] = 2  # 6 unique reads -> 3 batches of 2
         return raw
 
-    work = run_case("03", tmp_path, mutate_cfg=mutate)
+    work = run_case("03", tmp_path, ref, mutate_cfg=mutate)
     with open(work / "result.txt", "rb") as f:
         got = f.read()
-    with open(os.path.join(REF, "03", "result_e.txt"), "rb") as f:
+    with open(os.path.join(ref, "03", "result_e.txt"), "rb") as f:
         assert got == f.read()
 
 
-def test_resume_from_artifacts(tmp_path):
+def test_resume_from_artifacts(tmp_path, ref):
     """A run resumed from a previous run's matches.npz reproduces results."""
-    work = run_case("02", tmp_path)
+    work = run_case("02", tmp_path, ref)
     tmpdirs = os.listdir(work / "tmp")
     assert not tmpdirs  # cleaned
 
@@ -130,7 +134,7 @@ def test_resume_from_artifacts(tmp_path):
         raw["NoCleanTemp"] = True
         return raw
 
-    work2 = run_case("02", tmp_path / "second", mutate_cfg=keep)
+    work2 = run_case("02", tmp_path / "second", ref, mutate_cfg=keep)
     prev = work2 / "tmp" / os.listdir(work2 / "tmp")[0]
     assert (prev / "matches.npz").exists()
 
@@ -138,45 +142,45 @@ def test_resume_from_artifacts(tmp_path):
         raw["ResumeDir"] = str(prev)
         return raw
 
-    work3 = run_case("02", tmp_path / "third", mutate_cfg=resume)
+    work3 = run_case("02", tmp_path / "third", ref, mutate_cfg=resume)
     with open(work3 / "result.txt", "rb") as f:
         got = f.read()
-    with open(os.path.join(REF, "02", "result_e.txt"), "rb") as f:
+    with open(os.path.join(ref, "02", "result_e.txt"), "rb") as f:
         assert got == f.read()
 
 
-def test_single_device_mode_golden(tmp_path):
+def test_single_device_mode_golden(tmp_path, ref):
     """Mesh='off' forces the single-device engine even when several devices
     are visible; outputs stay byte-identical."""
     def mutate(raw):
         raw["Mesh"] = "off"
         return raw
 
-    work = run_case("03", tmp_path, mutate_cfg=mutate)
+    work = run_case("03", tmp_path, ref, mutate_cfg=mutate)
     with open(work / "result.txt", "rb") as f:
         got = f.read()
-    with open(os.path.join(REF, "03", "result_e.txt"), "rb") as f:
+    with open(os.path.join(ref, "03", "result_e.txt"), "rb") as f:
         assert got == f.read()
 
 
-def test_explicit_mesh_golden(tmp_path):
+def test_explicit_mesh_golden(tmp_path, ref):
     """An explicit DPxMP mesh through the driver produces golden output."""
     def mutate(raw):
         raw["Mesh"] = "2x4"
         return raw
 
-    work = run_case("03", tmp_path, mutate_cfg=mutate)
+    work = run_case("03", tmp_path, ref, mutate_cfg=mutate)
     with open(work / "result.txt", "rb") as f:
         got = f.read()
-    with open(os.path.join(REF, "03", "result_e.txt"), "rb") as f:
+    with open(os.path.join(ref, "03", "result_e.txt"), "rb") as f:
         assert got == f.read()
     with open(work / "result.nonmatch.txt.fastq", "rb") as f:
         got_nm = f.read()
-    with open(os.path.join(REF, "03", "result.nonmatch_e.txt"), "rb") as f:
+    with open(os.path.join(ref, "03", "result.nonmatch_e.txt"), "rb") as f:
         assert got_nm == f.read()
 
 
-def test_index_file_roundtrip(tmp_path):
+def test_index_file_roundtrip(tmp_path, ref):
     """IndexFile persists the built index; a second run loads it (skipping
     the build sort) and reproduces results byte-for-byte."""
     idx_path = str(tmp_path / "genes.index.npz")
@@ -186,316 +190,10 @@ def test_index_file_roundtrip(tmp_path):
         raw["IndexFile"] = idx_path
         return raw
 
-    work = run_case("03", tmp_path, mutate_cfg=mutate)
+    work = run_case("03", tmp_path, ref, mutate_cfg=mutate)
     assert os.path.exists(idx_path)
-    work2 = run_case("03", tmp_path / "again", mutate_cfg=mutate)
+    work2 = run_case("03", tmp_path / "again", ref, mutate_cfg=mutate)
     with open(work2 / "result.txt", "rb") as f:
         got = f.read()
-    with open(os.path.join(REF, "03", "result_e.txt"), "rb") as f:
+    with open(os.path.join(ref, "03", "result_e.txt"), "rb") as f:
         assert got == f.read()
-
-
-def test_mgather_overflow_falls_back_identically(monkeypatch):
-    """A low-entropy workload whose postings runs exceed the gather window
-    must trip the overflow flag, fall back to the XLA gather path, and
-    produce identical matches (pipeline re-runs the batch; fused flips the
-    process-wide switch off).  _MG_FIXUP is pinned to 0: the round-5
-    hybrid otherwise absorbs this workload's overflow blocks without any
-    ladder (covered by test_mgather_hybrid_absorbs_overflow)."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from muscato_tpu.engine import pipeline
-    from muscato_tpu.io.reads import ReadSet
-    from muscato_tpu.io.targets import TargetSet
-    from muscato_tpu.io import seqcodec
-    from muscato_tpu.ops import fused
-
-    # 40 genes of 600bp, all poly-A except sparse planted variation: one
-    # width-8 k-mer ("AAAAAAAA") occurs at ~24k positions, far beyond the
-    # 8192-element gather window.
-    rng = np.random.default_rng(11)
-    genes = []
-    for gi in range(40):
-        g = np.zeros(600, np.uint8)
-        # sprinkle a few non-A bases so verification has some variety
-        pos = rng.integers(0, 600, 5)
-        g[pos] = rng.integers(1, 4, 5)
-        genes.append(g)
-    tcat = np.concatenate(genes)
-    gene_start = np.arange(41, dtype=np.int64) * 600
-    ts = TargetSet(
-        tcat=tcat, gene_start=gene_start,
-        names=[b"g%d" % i for i in range(40)],
-        lengths=np.diff(gene_start),
-    )
-    reads = [bytes(seqcodec.LETTERS[c] for c in g[:60]) for g in genes[:16]]
-    codes, lengths = seqcodec.encode_rows(reads, 64)
-    rs = ReadSet(
-        codes=codes, lengths=lengths,
-        counts=np.ones(len(reads), np.int32),
-        name_blob=b"", name_off=np.zeros(len(reads) + 1, np.int64),
-        num_total=len(reads),
-    )
-    cfg = config_mod.Config(
-        Windows=[0, 8], WindowWidth=8, PMatch=0.9, MinDinuc=0,
-        MaxReadLength=64, MMTol=2, MaxMatches=10**6, MatchMode="best",
-    )
-
-    assert not fused.mgather_enabled()
-    monkeypatch.setattr(fused, "_MG_FIXUP", 0)
-    mr_a = pipeline.run_matching(cfg, rs, ts)
-    fused.set_mgather(True)
-    try:
-        mr_b = pipeline.run_matching(cfg, rs, ts)
-        # the huge postings run must have tripped the fallback: either the
-        # windows grew (and the retry succeeded on the kernels) or the
-        # process fell back to XLA gathers at max scale.
-        assert fused.mg_scale() > 1 or not fused.mgather_enabled()
-    finally:
-        fused.set_mgather(False)
-        fused.set_mg_scale(1)
-    for a, b in zip(
-        (mr_a.read_row, mr_a.gene, mr_a.start, mr_a.nmiss),
-        (mr_b.read_row, mr_b.gene, mr_b.start, mr_b.nmiss),
-    ):
-        np.testing.assert_array_equal(a, b)
-    assert len(mr_a.read_row) > 0
-
-
-def test_mgather_hybrid_absorbs_overflow(monkeypatch):
-    """With a sufficient fix-up budget a workload whose postings runs
-    overflow every window runs on the kernels with NO ladder trip: the
-    hybrid repairs the overflow blocks and the output is identical.
-    (This low-entropy workload overflows ~every block, so the budget is
-    pinned high; the default 64-block budget targets the sparse
-    overflows of realistic streams — measured on device.)"""
-    import numpy as np
-
-    from muscato_tpu.engine import pipeline
-    from muscato_tpu.io.reads import ReadSet
-    from muscato_tpu.io.targets import TargetSet
-    from muscato_tpu.io import seqcodec
-    from muscato_tpu.ops import fused
-
-    rng = np.random.default_rng(11)
-    genes = []
-    for gi in range(40):
-        g = np.zeros(600, np.uint8)
-        pos = rng.integers(0, 600, 5)
-        g[pos] = rng.integers(1, 4, 5)
-        genes.append(g)
-    tcat = np.concatenate(genes)
-    gene_start = np.arange(41, dtype=np.int64) * 600
-    ts = TargetSet(
-        tcat=tcat, gene_start=gene_start,
-        names=[b"g%d" % i for i in range(40)],
-        lengths=np.diff(gene_start),
-    )
-    reads = [bytes(seqcodec.LETTERS[c] for c in g[:60]) for g in genes[:16]]
-    codes, lengths = seqcodec.encode_rows(reads, 64)
-    rs = ReadSet(
-        codes=codes, lengths=lengths,
-        counts=np.ones(len(reads), np.int32),
-        name_blob=b"", name_off=np.zeros(len(reads) + 1, np.int64),
-        num_total=len(reads),
-    )
-    cfg = config_mod.Config(
-        Windows=[0, 8], WindowWidth=8, PMatch=0.9, MinDinuc=0,
-        MaxReadLength=64, MMTol=2, MaxMatches=10**6, MatchMode="best",
-    )
-    mr_a = pipeline.run_matching(cfg, rs, ts)
-    assert fused._MG_FIXUP > 0
-    monkeypatch.setattr(fused, "_MG_FIXUP", 1 << 17)
-    fused.set_mg_scale(1)  # a prior test's ladder may have grown it
-    fused.set_mgather(True)
-    try:
-        mr_b = pipeline.run_matching(cfg, rs, ts)
-        assert fused.mgather_enabled(), "hybrid must avoid any disable"
-        assert fused.mg_scale() == 1, "hybrid must avoid the regrow ladder"
-    finally:
-        fused.set_mgather(False)
-        fused.set_mg_scale(1)
-    for a, b in zip(
-        (mr_a.read_row, mr_a.gene, mr_a.start, mr_a.nmiss),
-        (mr_b.read_row, mr_b.gene, mr_b.start, mr_b.nmiss),
-    ):
-        np.testing.assert_array_equal(a, b)
-    assert len(mr_a.read_row) > 0
-
-
-def test_mgather_per_stream_fallback(monkeypatch):
-    """A postings-window overflow at max scale must disable ONLY the
-    postings stream: the rows windows (usually the bigger win) stay on,
-    mgather remains enabled, and the output is identical (round-3
-    per-stream fallback)."""
-    import numpy as np
-
-    from muscato_tpu.engine import pipeline
-    from muscato_tpu.io.reads import ReadSet
-    from muscato_tpu.io.targets import TargetSet
-    from muscato_tpu.io import seqcodec
-    from muscato_tpu.ops import fused
-
-    rng = np.random.default_rng(11)
-    genes = []
-    for gi in range(40):
-        g = np.zeros(600, np.uint8)
-        pos = rng.integers(0, 600, 5)
-        g[pos] = rng.integers(1, 4, 5)
-        genes.append(g)
-    tcat = np.concatenate(genes)
-    gene_start = np.arange(41, dtype=np.int64) * 600
-    ts = TargetSet(
-        tcat=tcat, gene_start=gene_start,
-        names=[b"g%d" % i for i in range(40)],
-        lengths=np.diff(gene_start),
-    )
-    reads = [bytes(seqcodec.LETTERS[c] for c in g[:60]) for g in genes[:16]]
-    codes, lengths = seqcodec.encode_rows(reads, 64)
-    rs = ReadSet(
-        codes=codes, lengths=lengths,
-        counts=np.ones(len(reads), np.int32),
-        name_blob=b"", name_off=np.zeros(len(reads) + 1, np.int64),
-        num_total=len(reads),
-    )
-    cfg = config_mod.Config(
-        Windows=[0, 8], WindowWidth=8, PMatch=0.9, MinDinuc=0,
-        MaxReadLength=64, MMTol=2, MaxMatches=10**6, MatchMode="best",
-    )
-    mr_a = pipeline.run_matching(cfg, rs, ts)
-    monkeypatch.setattr(fused, "MG_MAX_SCALE", 1)  # no growth: straight to
-    monkeypatch.setattr(fused, "_MG_FIXUP", 0)     # the per-stream disable
-    fused.set_mgather(True)                        # (hybrid pinned off)
-    try:
-        mr_b = pipeline.run_matching(cfg, rs, ts)
-        assert fused.mgather_enabled(), "rows stream must survive"
-        assert fused.mg_streams() == (False, True, True)
-    finally:
-        fused.set_mgather(False)
-        fused.set_mg_scale(1)
-    for a, b in zip(
-        (mr_a.read_row, mr_a.gene, mr_a.start, mr_a.nmiss),
-        (mr_b.read_row, mr_b.gene, mr_b.start, mr_b.nmiss),
-    ):
-        np.testing.assert_array_equal(a, b)
-    assert len(mr_a.read_row) > 0
-
-
-def test_pjoin_overflow_falls_back_identically():
-    """An index whose single-key postings run exceeds the sorted-join
-    window must return total = -1 from the probe; the pipeline re-probes
-    via sort-merge and switches the process off pjoin."""
-    import numpy as np
-
-    from muscato_tpu.engine import pipeline
-    from muscato_tpu.io.reads import ReadSet
-    from muscato_tpu.io.targets import TargetSet
-    from muscato_tpu.io import seqcodec
-    from muscato_tpu.ops import fused
-
-    rng = np.random.default_rng(12)
-    genes = []
-    for gi in range(60):  # 36k poly-A positions: one key1 run > the window
-        g = np.zeros(600, np.uint8)
-        pos = rng.integers(0, 600, 4)
-        g[pos] = rng.integers(1, 4, 4)
-        genes.append(g)
-    tcat = np.concatenate(genes)
-    gene_start = np.arange(61, dtype=np.int64) * 600
-    ts = TargetSet(
-        tcat=tcat, gene_start=gene_start,
-        names=[b"g%d" % i for i in range(60)],
-        lengths=np.diff(gene_start),
-    )
-    reads = [bytes(seqcodec.LETTERS[c] for c in g[:60]) for g in genes[:8]]
-    codes, lengths = seqcodec.encode_rows(reads, 64)
-    rs = ReadSet(
-        codes=codes, lengths=lengths,
-        counts=np.ones(len(reads), np.int32),
-        name_blob=b"", name_off=np.zeros(len(reads) + 1, np.int64),
-        num_total=len(reads),
-    )
-    cfg = config_mod.Config(
-        Windows=[0, 8], WindowWidth=8, PMatch=0.9, MinDinuc=0,
-        MaxReadLength=64, MMTol=2, MaxMatches=10**6, MatchMode="best",
-    )
-
-    assert not fused.pjoin_enabled()
-    mr_a = pipeline.run_matching(cfg, rs, ts)
-    fused.set_pjoin(True)
-    try:
-        mr_b = pipeline.run_matching(cfg, rs, ts)
-        # overflow tripped the fallback: the window grew (and the retry
-        # succeeded) or the process reverted to sort-merge at max scale.
-        assert fused.pjoin_scale() > 1 or not fused.pjoin_enabled()
-    finally:
-        fused.set_pjoin(False)
-        fused.set_pjoin_scale(1)
-    for a, b in zip(
-        (mr_a.read_row, mr_a.gene, mr_a.start, mr_a.nmiss),
-        (mr_b.read_row, mr_b.gene, mr_b.start, mr_b.nmiss),
-    ):
-        np.testing.assert_array_equal(a, b)
-    assert len(mr_a.read_row) > 0
-
-
-def test_mosaic_failure_safety_net():
-    """A backend kernel failure disables every engine kernel once and
-    re-dispatches; unrelated errors pass through untouched."""
-    from muscato_tpu.engine.pipeline import _maybe_disable_kernels
-    from muscato_tpu.ops import fused
-
-    moserr = RuntimeError(
-        "INTERNAL: Mosaic failed to compile TPU kernel: vmem limit"
-    )
-    crasherr = RuntimeError(
-        "UNAVAILABLE: TPU worker process crashed or restarted. This can "
-        "be caused by a kernel fault"
-    )
-    # No kernels on: not ours to handle.
-    for setter in (fused.set_pjoin, fused.set_mgather,
-                   fused.set_pexpand):
-        setter(False)
-    assert not _maybe_disable_kernels(moserr)
-
-    fused.set_mgather(True)
-    try:
-        # Unrelated error: untouched, kernels stay on.
-        assert not _maybe_disable_kernels(ValueError("bad shape"))
-        assert fused.mgather_enabled()
-        # Kernel-backend error: everything off, one-shot.
-        assert _maybe_disable_kernels(moserr)
-        assert not fused.mgather_enabled()
-        assert not fused.pjoin_enabled()
-        assert not fused.pexpand_enabled()
-        # Second occurrence (kernels already off) re-raises at the caller.
-        assert not _maybe_disable_kernels(moserr)
-        # A worker crash with kernels on is also treated as kernel-caused.
-        fused.set_pexpand(True)
-        assert _maybe_disable_kernels(crasherr)
-        assert not fused.pexpand_enabled()
-    finally:
-        for setter in (fused.set_pjoin, fused.set_mgather,
-                       fused.set_pexpand):
-            setter(False)
-        fused.set_mg_streams(False, False, False)
-
-
-def test_mg_rows_window_growth_is_capped():
-    """The verify rows window never grows past its device-proven Mosaic
-    cap: growth helps only the postings stream."""
-    from muscato_tpu.ops import fused
-    from muscato_tpu.ops.fused import (
-        _MG_ROWS_WINDOW, _MG_ROWS_WINDOW_CAP, mg_rows_at_cap,
-    )
-
-    assert _MG_ROWS_WINDOW <= _MG_ROWS_WINDOW_CAP
-    old = fused.mg_scale()
-    try:
-        fused.set_mg_scale(1)
-        assert mg_rows_at_cap() == (_MG_ROWS_WINDOW >= _MG_ROWS_WINDOW_CAP)
-        fused.set_mg_scale(fused.MG_MAX_SCALE)
-        assert mg_rows_at_cap()
-    finally:
-        fused.set_mg_scale(old)
